@@ -18,7 +18,7 @@ phone inventory (data/wordvocab.py) runs the complete loop —
                STREAMED == OFFLINE parity gate + real-time capacity
 
 Each stage prints one JSON line; the last line is the bench-style summary.
-Run on TPU for the headline numbers; CPU works for the gates (slow).
+Run on the GPU for timings; CPU works for the gates (slow).
 """
 import argparse
 import json
@@ -201,8 +201,8 @@ def decode_stage(models, corpus, eval_transcripts, mcfg, args):
     agree = float(np.mean([a == b for a, b in zip(preds, preds_beam)]))
 
     # Quad-form emission layout: the large-S lever (the whitening path's
-    # (T, S, D) intermediate is the decode bottleneck past a few hundred
-    # states; the quad layout is one full-depth MXU matmul). Skipped when
+    # (T, S, D) intermediate grows with S; the quad layout is one K=1521
+    # matmul). Skipped when
     # quad already IS the baseline.
     if args.emissions_exact == "quad":
         dt_quad, agree_quad = dt, 1.0
@@ -217,11 +217,9 @@ def decode_stage(models, corpus, eval_transcripts, mcfg, args):
             np.mean([a == b for a, b in zip(preds, preds_quad)])
         )
 
-    # Emission precision tiers on the quad layout (the measured large-S
-    # headroom from the round-4 MFU sweep: emissions are the compute
-    # bound, HIGHEST = 6 bf16 MXU passes per matmul). "default" (1 pass)
-    # measured an honest NEGATIVE on this corpus (0.825 vs 0.9625 exact);
-    # "high" (3 passes) is the candidate fast tier.
+    # Emission precision tiers on the quad layout
+    # (models/decoder.EMISSION_PRECISION): "high" is three bf16 passes,
+    # "default" the backend's default f32 dot (TF32 on the GPU).
     prec_cols = {}
     for tier in ("high", "default"):
         fast = ContinuousDecoder(models, penalty=args.penalty,
@@ -451,8 +449,8 @@ def main() -> None:
             f"held-out accuracy {acc:.2%} < {GATE_TEST:.0%} at "
             f"{len(labels)} words"
         )
-        # The beam A/B is gated RELATIVE to the exact decoder: on dense TPU
-        # hardware the prune saves no FLOPs — it is a search-semantics
+        # The beam A/B is gated RELATIVE to the exact decoder: on dense
+        # vector hardware the prune saves no FLOPs — it is a search-semantics
         # lever, so the contract is "costs at most a few near-tie flips vs
         # exact", not an absolute accuracy floor (at S=1003 the auto width
         # measures agreement 0.975 with every flip an exact near-tie).

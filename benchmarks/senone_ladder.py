@@ -31,8 +31,8 @@ sys.path.insert(0, __file__.rsplit("/", 2)[0])
 
 from benchmarks.phone_tier import build_parser, run as run_cell  # noqa: E402
 
-# The r4 flagship cell (anticipatory corpus, rich data) — the config behind
-# ROADMAP.md's senone table and results/r4/senone_runs.jsonl.
+# The flagship phone-tier cell (anticipatory corpus, rich data) — the config
+# behind README.md's senone result.
 CELL = (
     "--num-words 20 --phones-per-word 2 3 --hard --anticipatory 0.45 "
     "--train-speakers 8 --takes 6 --train-sentences 30 "

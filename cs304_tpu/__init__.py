@@ -1,4 +1,4 @@
-"""cs304_tpu — a TPU-native speech-recognition framework.
+"""cs304_tpu — a JAX speech-recognition framework that runs on an NVIDIA GPU.
 
 A ground-up JAX/XLA/Pallas re-design of the capabilities of
 loeeeee/CS-304-Speech-Recognition-Code (reference mounted at /root/reference):

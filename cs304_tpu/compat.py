@@ -2,7 +2,7 @@
 
 A user of the reference package can `from cs304_tpu.compat import ...` the
 same names with the same call shapes (reference src/loe_speech_recognition/
-__init__.py:1-30) and get the TPU implementations underneath:
+__init__.py:1-30) and get the batched JAX implementations underneath:
 
     MFCC(signal, sample_rate).feature_vector          # (39, T) like mfcc.py:47
     MFCC.batch(signals, sample_rate)                   # list of (T, 39)

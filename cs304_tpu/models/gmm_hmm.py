@@ -230,7 +230,7 @@ def _bw_stats(means, covs, weights, log_a, batch, lengths, cov_reg: float):
         gamma_k = gamma[..., None] * jnp.exp(log_resp)  # (T, S, K)
         counts = jnp.sum(gamma_k, axis=0)  # (S, K)
         # Moments centered around the previous means: the raw one-pass form
-        # cancels catastrophically under default-precision (bf16) einsums.
+        # cancels catastrophically under default-precision (TF32 on the GPU) einsums.
         g_flat = gamma_k.reshape(-1, s * k)
 
         def slot_stats(slot):

@@ -10,7 +10,7 @@ separate boundary bookkeeping (model_boundary.py). Here everything is arrays:
   CompositeHMM: the concatenation of its words' arrays + int boundary vectors
 
 At 58 composite states (11 digits x 5 + 3 silence), dense (S, S) costs nothing
-on TPU and removes every dict lookup from the hot path.
+and removes every dict lookup from the hot path.
 """
 from __future__ import annotations
 

@@ -15,7 +15,7 @@ parameters), unseen triphones route through the same trees and get proper
 context-dependent senones — strictly better than backing off to the
 monophone.
 
-TPU-native mapping: a senone assignment is just a state-tie map for the
+Device mapping: a senone assignment is just a state-tie map for the
 embedded trainer (ContinuousTrainer(state_ties=...)) — statistics pool
 per senone via one segment-sum inside the unchanged fused XLA program
 (models/train_fused._pool_slots), so senone training costs the same

@@ -11,7 +11,7 @@ Reference algorithm (hidden_markov_model.py:667-797):
     segmental k-means M-step as isolated training (:754-770)
   - training stops when every model's means are converged (allclose)
 
-TPU-native restructuring: transcripts with equal digit count share a sentence
+Vectorized restructuring: transcripts with equal digit count share a sentence
 topology, so alignment runs as one vmapped batch per transcript; the "remux"
 is not frame-list surgery but a per-frame (label, local_state) classification
 of the path, turning the whole M-step into segment-sum matmuls reduced across
@@ -132,15 +132,11 @@ class ContinuousTrainConfig:
     fused: bool = True
     # Emission layout inside the fused programs. "whiten" (default):
     # HIGHEST-precision whitening matmul, f32-exact, legacy-parity. "quad":
-    # the serving path's quadratic-form layout — one full-K=1521 MXU matmul,
-    # no (frames, slots, D) HBM intermediate; ~1e-2 absolute emission error
-    # that only perturbs exact near-ties in the alignment argmax. Measured
-    # A/B at flagship scale on the v5e: NEUTRAL in the training loop
-    # (8.7 vs 9.2 ms/iteration emission slice — training emissions are not
-    # the bottleneck the serving path's were), so "whiten" stays default.
-    # Measured at LARGE slot counts (round 3, 101 labels / 505 slots, 720
-    # utterances): quad is 1.40x the whitening iteration (5.36 -> 3.84
-    # s/iter) — flip it for 100+-word vocabularies.
+    # the serving path's quadratic-form layout — one K=1521 matmul, no
+    # (frames, slots, D) intermediate; ~1e-2 absolute emission error that
+    # only perturbs exact near-ties in the alignment argmax. "whiten" stays
+    # the default (exact); quad is the lever for 100+-word vocabularies.
+    # Neither has been timed on the GPU yet.
     emissions: str = "whiten"
     # Cross-word transition topology of the training sentence HMM.
     # "exit_only" (default): words connect ONLY exit -> next entry, matching
@@ -513,7 +509,7 @@ class ContinuousTrainer:
         """labeled_features: transcript -> list of (T_i, D) feature arrays.
         Returns the number of iterations run.
 
-        checkpoint_dir: when given, saves resumable trainer state (Orbax)
+        checkpoint_dir: when given, saves resumable trainer state (.npz)
         every `checkpoint_every` iterations; a later trainer can continue via
         `resume(checkpoint_dir)` — surviving interrupts mid-run instead of
         only at the reference's KeyboardInterrupt save point

@@ -409,7 +409,7 @@ def fused_gmm_train_run_sharded(
     max_iterations: int,
 ):
     """Whole-run GMM device loop over a data-parallel mesh (psums inside the
-    while_loop ride the ICI)."""
+    while_loop cross the device interconnect)."""
     from jax import shard_map
     from jax.sharding import PartitionSpec as P
 

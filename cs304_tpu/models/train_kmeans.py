@@ -1,4 +1,4 @@
-"""Segmental k-means (Viterbi) training of word HMMs, batched on TPU.
+"""Segmental k-means (Viterbi) training of word HMMs, batched on the device.
 
 Reference algorithm (hidden_markov_model.py:211-410):
   init:   means = uniform time-split of the FIRST utterance (:359-385),
@@ -145,7 +145,7 @@ def train_word_hmm(
 
     Equivalent to HiddenMarkovModelTrainable.from_data (reference
     hidden_markov_model.py:233-281). With `mesh`, the utterance batch shards
-    over the mesh's data axis and the E-step statistics cross the ICI once
+    over the mesh's data axis and the E-step statistics cross the interconnect once
     per iteration (parallel.data_parallel.dp_kmeans_step; note its one-pass
     covariance moment form vs np.cov bit-parity here).
     """
@@ -212,7 +212,7 @@ def train_digit_models(
 
     batched=True stacks every label into one (M, B, T, D) tensor and runs a
     single vmapped E+M step per iteration — the whole 11-model corpus trains
-    as one TPU program per iteration instead of 11 sequential loops (the
+    as one device program per iteration instead of 11 sequential loops (the
     reference forks a process pool per model per iteration,
     hidden_markov_model.py:300-305). Falls back to the per-label loop when
     label batch sizes are wildly uneven.

@@ -3,7 +3,7 @@
 // The reference's IO path is scipy.io.wavfile per file plus a pure-Python
 // per-frame energy state machine (ti_digits.py:130-134,
 // signal_separation.py:102-151). This module is the C++ equivalent feeding
-// the TPU input pipeline: PCM16/PCM32/float32 WAV parsing straight into
+// the device input pipeline: PCM16/PCM32/float32 WAV parsing straight into
 // float32 buffers, vectorized per-frame mean-|x| energies, and the same
 // high/low hysteresis endpointing automaton. Exposed as a plain C ABI for
 // ctypes (no pybind11 in this image).

@@ -1,1 +1,1 @@
-"""TPU compute kernels: log-domain math, Gaussian/GMM emissions, MFCC, Viterbi, DTW."""
+"""Device compute kernels: log-domain math, Gaussian/GMM emissions, MFCC, Viterbi, DTW."""

@@ -3,7 +3,7 @@
 The reference scores one frame under one state at a time through frozen
 scipy.stats.multivariate_normal objects (reference: hidden_markov_model.py:20-48,
 called per (t, state) inside the trellis loops at :189 and :526). Here the whole
-(T, S) emission matrix is one whitening matmul on the MXU:
+(T, S) emission matrix is one whitening matmul:
 
     y[t, s, :] = L_s^{-1} (x_t - mu_s)        (precomputed W_s = L_s^{-1})
     logpdf[t, s] = -0.5 (D log 2pi + logdet Sigma_s + ||y[t, s]||^2)
@@ -70,12 +70,11 @@ def gaussian_log_pdf(
     """Emission matrix for a frame sequence.
 
     frames: (T, D) -> returns (T, S) log-densities. The contraction is a single
-    (S*D, D) x (D, T) matmul, which XLA tiles onto the MXU.
+    (S*D, D) x (D, T) matmul.
 
-    precision defaults to HIGHEST: f32-exact MXU emissions, which reference
-    decode parity depends on. Pass jax.lax.Precision.HIGH for ~2x faster
-    serving when bitwise parity is not required (measured max logpdf drift on
-    39-dim features: ~1e-2; DEFAULT/bf16 is too coarse).
+    precision defaults to HIGHEST: f32-exact emissions, which reference
+    decode parity depends on (an f32 dot without a precision runs in TF32 on
+    the GPU).
     """
     if precision is None:
         precision = jax.lax.Precision.HIGHEST
@@ -94,13 +93,13 @@ def gaussian_log_pdf(
 
 
 class GaussianQuadParams(NamedTuple):
-    """Quadratic-form emission parameters (the MXU-friendly layout).
+    """Quadratic-form emission parameters (the large-S layout).
 
-    The whitening form contracts over K=D=39, which under-fills the 128-deep
-    systolic array. Expanding the quadratic form
+    The whitening form contracts over K=D=39 and materializes a (T, S, D)
+    intermediate. Expanding the quadratic form
         logpdf[t, s] = const_s + x_t^T (-0.5 P_s) x_t + x_t . (P_s mu_s)
-    turns the heavy term into ONE (T, D^2) x (D^2, S) matmul with K = 1521 —
-    full MXU depth. Numerics: one-pass form, ~1e-2 absolute emission error in
+    turns the heavy term into ONE (T, D^2) x (D^2, S) matmul with K = 1521.
+    Numerics: one-pass form, ~1e-2 absolute emission error in
     f32 vs the whitening path (fine for accuracy, not for bit-parity); use
     make_gaussian_params/gaussian_log_pdf when exact reference parity matters.
 
@@ -123,8 +122,9 @@ def make_gaussian_quad_params(means, covariances) -> GaussianQuadParams:
     prec = jax.vmap(lambda l: jax.scipy.linalg.cho_solve((l, True), eye))(chol)
     log_det = 2.0 * jnp.sum(jnp.log(jnp.diagonal(chol, axis1=-2, axis2=-1)), axis=-1)
     log_norm = -0.5 * (d * _LOG_2PI + log_det)
-    p_mu = jnp.einsum("sde,se->sd", prec, means)
-    const = log_norm - 0.5 * jnp.einsum("sd,sd->s", p_mu, means)
+    hi = jax.lax.Precision.HIGHEST  # an f32 dot without it is TF32 on the GPU
+    p_mu = jnp.einsum("sde,se->sd", prec, means, precision=hi)
+    const = log_norm - 0.5 * jnp.einsum("sd,sd->s", p_mu, means, precision=hi)
     return GaussianQuadParams(
         neg_half_p=(-0.5 * prec).reshape(s, d * d),
         lin=p_mu.T,
@@ -137,11 +137,9 @@ def gaussian_log_pdf_quad(
 ) -> jax.Array:
     """(T, D) -> (T, S) via the quadratic-form matmul (see GaussianQuadParams).
 
-    precision defaults to HIGHEST (f32-exact, 6 bf16 MXU passes). Passing
-    jax.lax.Precision.DEFAULT runs single-pass bf16 matmuls — measured
-    1.35x/1.57x at S=503/2503 on the serving fused path with ~0.2% path
-    flips on random data (benchmarks/results/r4); the whitening layout
-    remains the bit-parity reference either way."""
+    precision defaults to HIGHEST (true f32). The decoder's lower tiers
+    (models/decoder.EMISSION_PRECISION) pass a cheaper dot; the whitening
+    layout remains the bit-parity reference either way."""
     if precision is None:
         precision = jax.lax.Precision.HIGHEST
     t, d = frames.shape
@@ -194,7 +192,7 @@ def make_gmm_params(
 class GMMQuadParams(NamedTuple):
     """K-mixture GMM emissions in the quadratic-form layout: the (S, K)
     mixture grid flattens to S*K Gaussians so the heavy term stays ONE
-    full-depth (T, D^2) x (D^2, S*K) MXU matmul (see GaussianQuadParams) —
+    (T, D^2) x (D^2, S*K) matmul (see GaussianQuadParams) —
     the same large-S lever the single-Gaussian decode path uses, extended
     to GMM checkpoints. Zero-weight padded mixtures carry log(0) = -inf
     weights and drop out of the logsumexp exactly as in the whitening

@@ -8,7 +8,7 @@ equivalent — its only sequence-level knob is the flat inter-word penalty
 swept corpus-wide (scripts/project5_find_trans_ndigits_*.py); composing the
 trellis with an automaton enforces structure exactly, per utterance.
 
-TPU shape: the trellis state becomes (G, S) — grammar plane x composite
+Device shape: the trellis state becomes (G, S) — grammar plane x composite
 state. One time step is the same whole-array max-plus update as the
 unconstrained scan; the cross move routes word-exit scores between planes
 through the DFA's transition table with a one-hot max (G and the vocabulary

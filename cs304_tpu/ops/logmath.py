@@ -2,7 +2,7 @@
 
 The reference does all trellis math with explicit -inf floats and Python loops
 (reference: hidden_markov_model.py:160-208). Here the same semantics are expressed
-as whole-vector ops so XLA can map them onto the TPU VPU/MXU.
+as whole-vector ops that XLA fuses into a few device kernels.
 """
 from __future__ import annotations
 

@@ -6,7 +6,7 @@ the standard k-best Viterbi: every state carries its K best distinct path
 prefixes; a step merges the banded predecessors' beams (and, for word-entry
 states, the globally shared top-K word-exit pool + penalty) with jax.lax.top_k.
 All merges are whole-state-vector ops inside one lax.scan, so the recursion
-stays a TPU-friendly scan like the 1-best path (ops/viterbi.py).
+stays a whole-vector scan like the 1-best path (ops/viterbi.py).
 
 Hypotheses are distinct STATE paths; distinct paths may decode to the same
 word string — `nbest_decode` dedupes at the string level.

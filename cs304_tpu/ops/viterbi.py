@@ -4,7 +4,7 @@ The reference iterates `for t in 1..T: for state in S: for pred in band` in pure
 Python with per-cell scipy logpdf calls (reference: hidden_markov_model.py:160-208
 single-word, :481-581 composite). Here one time step is a whole-vector tropical
 update new_alpha = max_{s'}(alpha[s'] + M[s', s]) + log_b[t, s], so the T-loop is
-a lax.scan and everything inside it is VPU/MXU work. Emissions (T, S) are
+a lax.scan and everything inside it is whole-vector work. Emissions (T, S) are
 precomputed in one batched matmul (ops/gaussian.py).
 
 Topology is encoded once into a dense effective transition matrix M:
@@ -15,9 +15,10 @@ Topology is encoded once into a dense effective transition matrix M:
   entry state; word-entry states additionally accept every word-exit state with a
   flat inter-word log penalty (reference: hidden_markov_model.py:508-559).
 
-Dense (S, S) is the right TPU layout: the reference tops out at 58 composite
-states (11 digit words x 5 + silence x 3); padding to the 128-lane VPU register
-is cheaper than any sparse indexing.
+The dense (S, S) form is the parity reference: the reference tops out at 58
+composite states (11 digit words x 5 + silence x 3). The batched decoders use
+the O(S) banded step (viterbi_composite_batch_fast) or its GPU kernel
+(ops/pallas/trellis_scanfree.py).
 
 Backtrace parity note: the reference's backtrace (hidden_markov_model.py:200-208,
 :573-581) drops the true final state — its decoded path satisfies
@@ -70,7 +71,7 @@ def composite_transition_matrix(
     only): on an exact float tie between an entry's self-loop and an exit at a
     HIGHER state index, the dense argmax picks the self-loop while the
     reference orders exits first. The default backends — the banded fast path
-    below and the Pallas scan-free pair — implement the reference's order
+    below and the scan-free GPU kernel — implement the reference's order
     exactly; tests/test_tie_break.py constructs the exact-tie cases and
     asserts them against the reference oracle.
     """
@@ -308,9 +309,9 @@ def viterbi_composite_batch_fast(
     score falls more than `beam` below the frame's best are set to -inf
     (the reference prunes its DTW trellis the same relative way,
     dynamic_time_wrapping.py:89-95; its HMM decoder never needed it at 58
-    states). beam=None (default) and beam=inf are exact. Honest TPU cost
-    note: on dense vectorized hardware the masking saves no FLOPs — the
-    lever's value here is hypothesis control (it changes WHICH paths
+    states). beam=None (default) and beam=inf are exact. Cost note: on
+    dense vectorized hardware the masking saves no FLOPs — the lever's
+    value here is hypothesis control (it changes WHICH paths
     survive at large vocabularies, trading exactness for robustness to
     score-scale pathologies) and search-semantics parity with classic
     large-vocabulary decoders, not speed. Pruned states can only revive
@@ -391,39 +392,5 @@ def viterbi_composite_batch_fast(
     best = jnp.argmax(exit_scores, axis=1).astype(jnp.int32)
     paths = jax.vmap(
         lambda bp_i, st, l: _backtrace(bp_i, st, l, quirk_backtrace)
-    )(backptrs, best, lengths)
-    return scores, paths
-
-
-def viterbi_composite_batch_pallas(
-    log_b, log_a, lower_of_state, is_entry, is_exit, penalty, lengths,
-    quirk_backtrace: bool = True, interpret: bool | None = None,
-):
-    """Composite batch decode with the fused Pallas forward-trellis kernel
-    (ops/pallas/trellis.py); termination and backtrace identical to the scan
-    path. log_b (B, T, S), lengths (B,) -> (scores (B,), paths (B, T)).
-    interpret=None auto-selects interpreter mode off-TPU."""
-    import jax as _jax
-
-    if interpret is None:
-        interpret = _jax.default_backend() != "tpu"
-    from .pallas.trellis import viterbi_forward_pallas
-
-    b, t_total, s = log_b.shape
-    trans = composite_transition_matrix(
-        log_a, lower_of_state, is_entry, is_exit, penalty
-    )
-    diag = jnp.diagonal(log_a)
-    diag = jnp.where(jnp.isfinite(diag), diag, 0.0)
-    alpha0 = jnp.where(is_entry[None, :], log_b[:, 0, :] + diag[None, :], -jnp.inf)
-
-    alpha, backptrs = viterbi_forward_pallas(
-        log_b, trans, alpha0, lengths, interpret=interpret
-    )
-    exit_scores = jnp.where(is_exit[None, :], alpha, -jnp.inf)
-    scores = jnp.max(exit_scores, axis=1)
-    best = jnp.argmax(exit_scores, axis=1).astype(jnp.int32)
-    paths = jax.vmap(
-        lambda bp, st, l: _backtrace(bp, st, l, quirk_backtrace)
     )(backptrs, best, lengths)
     return scores, paths

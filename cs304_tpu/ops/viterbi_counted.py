@@ -9,7 +9,7 @@ constraint is a tiny finite-state automaton: compose the composite trellis
 with a word counter and decode the best path that emits EXACTLY N counted
 words (silence is free).
 
-TPU shape: the trellis state becomes (N+1, S) — count plane x composite
+Device shape: the trellis state becomes (N+1, S) — count plane x composite
 state, ~500 cells at the flagship size — and one time step is the same
 whole-array max-plus update as the unconstrained scan:
 

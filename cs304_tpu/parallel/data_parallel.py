@@ -1,11 +1,11 @@
-"""Data-parallel training and decoding over a TPU mesh.
+"""Data-parallel training and decoding over a device mesh.
 
 The reference's only parallelism is ProcessPoolExecutor fan-out of per-utterance
 Viterbi alignments, with parameters shipped by fork/pickle and results gathered
 in the parent (hidden_markov_model.py:300-305, 746-750; SURVEY.md §2.4). The
-TPU-native equivalent: utterance batches sharded over the mesh's data axis via
+device-mesh equivalent: utterance batches sharded over the mesh's data axis via
 shard_map, parameters replicated (they are tiny — 58 states of 39-dim
-Gaussians), and the E-step sufficient statistics reduced with psum over ICI.
+Gaussians), and the E-step sufficient statistics reduced with psum.
 That one collective replaces the whole pickle-over-fork machinery.
 
 Model parallelism is deliberately absent: the flagship model is ~58 states x
@@ -45,7 +45,7 @@ def _local_kmeans_stats(means, covs, log_a, batch, lengths, num_states: int):
     Moments are centered around the *previous* means (gathered per frame via
     the Viterbi path) and accumulated at Precision.HIGHEST: the naive one-pass
     form (raw second moment minus counts x mean-outer) cancels two large terms,
-    and with default-precision einsums (bf16 matmuls on TPU) the rounding can
+    and with default-precision einsums (TF32 on the GPU) the rounding can
     exceed the covariance regularizer and yield non-PSD covariances. Centering
     first keeps every accumulated term small, so a single psum still suffices.
     """
@@ -78,7 +78,7 @@ def dp_kmeans_step(
     """One data-parallel segmental k-means iteration.
 
     batch (B, T, D) and lengths (B,) are sharded over the data axis; the
-    sufficient statistics cross the ICI once via psum; the (tiny) M-step
+    sufficient statistics cross the interconnect once via psum; the (tiny) M-step
     runs replicated. B must be divisible by the mesh size.
 
     The covariance uses moments centered around the previous means (see
@@ -135,7 +135,7 @@ def dp_embedded_stats(
 
     The sentence alignment (models.train_continuous._stats_pass) runs on each
     device's shard of utterances; the (L, S) / (L, S, D) / (L, S, S)
-    sufficient statistics cross the ICI once via psum. This shards the
+    sufficient statistics cross the interconnect once via psum. This shards the
     reference's per-transcript ProcessPool (hidden_markov_model.py:746-750).
     Returns (counts, sums, trans) replicated; per-utterance paths stay sharded.
     """

@@ -9,8 +9,8 @@ tiny JSON manifest for the collection. The label is the folder name, exactly
 like the reference (hidden_markov_model.py:144-158), so checkpoint trees keep
 the same shape as the reference's .cache/ dirs.
 
-Orbax-backed checkpointing of the stacked trainer state is provided separately
-for large sweeps (save_trainer_state/load_trainer_state).
+The stacked trainer state of a resumable training run is saved separately as
+one .npz file (save_trainer_state/load_trainer_state).
 """
 from __future__ import annotations
 
@@ -155,20 +155,23 @@ def load_models(
     return out
 
 
-# -- Orbax-backed stacked-state checkpointing (resumable training sweeps) ----
+# -- stacked trainer state (resumable training runs) --------------------------
 
-def save_trainer_state(state: dict, folder: str) -> None:
-    """Checkpoint arbitrary array-tree training state with Orbax."""
-    import orbax.checkpoint as ocp
-
-    path = os.path.abspath(folder)
-    with ocp.PyTreeCheckpointer() as ckptr:
-        ckptr.save(path, state, force=True)
+_STATE = "trainer_state.npz"
 
 
-def load_trainer_state(folder: str) -> dict:
-    import orbax.checkpoint as ocp
+def save_trainer_state(state: Dict[str, np.ndarray], folder: str) -> str:
+    """Save a flat dict of arrays as <folder>/trainer_state.npz. The file is
+    written under a temporary name and renamed, so an interrupted save never
+    leaves a truncated state behind."""
+    os.makedirs(folder, exist_ok=True)
+    path = os.path.join(folder, _STATE)
+    tmp = path + ".tmp.npz"
+    np.savez(tmp, **{k: np.asarray(v) for k, v in state.items()})
+    os.replace(tmp, path)
+    return path
 
-    path = os.path.abspath(folder)
-    with ocp.PyTreeCheckpointer() as ckptr:
-        return ckptr.restore(path)
+
+def load_trainer_state(folder: str) -> Dict[str, np.ndarray]:
+    with np.load(os.path.join(folder, _STATE)) as z:
+        return {k: z[k] for k in z.files}

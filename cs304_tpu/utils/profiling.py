@@ -41,7 +41,7 @@ def reset_timings() -> None:
 
 
 @contextmanager
-def device_trace(log_dir: str = "/tmp/cs304_tpu_trace"):
+def device_trace(log_dir: str):
     """Capture an XLA device trace viewable in TensorBoard / xprof."""
     import jax
 

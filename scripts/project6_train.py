@@ -27,7 +27,7 @@ def main() -> None:
                              "GMM trainer (beyond-reference capability)")
     parser.add_argument("--data-parallel", action="store_true",
                         help="shard the corpus over ALL local devices "
-                             "(jax.sharding.Mesh; statistics psum over ICI). "
+                             "(jax.sharding.Mesh; statistics psum across devices). "
                              "Single-device runs work too, for parity checks.")
     args = parser.parse_args()
     if args.resume and not args.state_dir:

@@ -4,7 +4,7 @@
 Run this ON A MACHINE WITH LIBROSA INSTALLED (any OS/arch — the goldens are
 pure float arrays) and commit the resulting `librosa_goldens.npz` next to this
 script. The in-repo parity test (tests/test_librosa_goldens.py) then asserts
-the TPU front-end against genuine librosa output instead of a same-author
+the JAX front-end against genuine librosa output instead of a same-author
 re-derivation.
 
     python tests/golden/make_librosa_goldens.py

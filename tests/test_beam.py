@@ -190,7 +190,7 @@ def test_decoder_beam_gmm(rng):
 
 
 def test_decoder_quad_emissions_agree(rng):
-    """emissions='quad' (full-depth MXU layout) decodes the same
+    """emissions='quad' (the K=1521 matmul layout) decodes the same
     transcripts as the parity whitening layout on separated models."""
     from cs304_tpu.data.wordvocab import word_labels
     from cs304_tpu.models.decoder import ContinuousDecoder

@@ -73,7 +73,7 @@ def test_full_cli_chain(tmp_chain_dir):
     assert "12 models" in out
     assert os.path.exists(os.path.join(ck5, "S", "params.npz"))
 
-    # project6: embedded continuous training with Orbax trainer state.
+    # project6: embedded continuous training with a resumable .npz trainer state.
     run_script(
         "project6_train.py", "--synthetic", "--checkpoint-dir", ck5,
         "--out-dir", ck6, "--state-dir", state,

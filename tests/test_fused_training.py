@@ -195,7 +195,7 @@ def test_fused_baum_welch_sharded_matches_single(rng):
 
 
 def test_quad_emissions_trains_close_to_whiten(rng):
-    """emissions='quad' (full-MXU-depth quadratic form, ~1e-2 emission
+    """emissions='quad' (the K=1521 quadratic form, ~1e-2 emission
     error) must train to parameters close to the exact whitening path —
     alignment argmax decisions only differ on exact near-ties."""
     models = _models(rng)

@@ -4,7 +4,7 @@ Two modes, best available wins:
 
 1. If `tests/golden/librosa_goldens.npz` is committed (generated by
    tests/golden/make_librosa_goldens.py on any machine with librosa), assert
-   the TPU front-end matches those genuine librosa features.
+   the JAX front-end matches those genuine librosa features.
 2. Else if librosa happens to be importable here, compute the reference
    pipeline live and assert against it.
 3. Else skip with an actionable message (this environment has no network and

@@ -30,15 +30,15 @@ def models():
     return {"A": mk("A", 5, 1), "B": mk("B", 4, 2), "S": mk("S", 3, 3)}
 
 
-def test_backends_agree_on_predictions(models, rng):
+def test_backends_agree_on_predictions(models, rng, interpret_kernel):
     feats = [
         (rng.normal(size=(t, 5)) * 2).astype(np.float32) for t in (30, 55, 18)
     ]
     outs = {}
-    for backend in ("scan", "fast", "pallas"):
+    for backend in ("scan", "fast", "scanfree"):
         dec = ContinuousDecoder(dict(models), penalty=-8.0, backend=backend)
         outs[backend] = dec.predict_batch(feats)
-    assert outs["scan"] == outs["fast"] == outs["pallas"]
+    assert outs["scan"] == outs["fast"] == outs["scanfree"]
 
 
 def test_band_parity_training_mode(models, rng):
@@ -63,9 +63,38 @@ def test_fast_mode_mfcc_config(rng):
     parity, t1 = mfcc_features(jnp.asarray(sig), cfg=MFCCConfig())
     fast, t2 = mfcc_features(jnp.asarray(sig), cfg=MFCCConfig(precision="high"))
     assert int(t1) == int(t2)
-    # On CPU precision settings are no-ops, so results match exactly; the TPU
-    # delta is measured/documented in ARCHITECTURE.md §6.
+    # On CPU precision settings are no-ops, so results match exactly; on the
+    # GPU "high" is a 3-pass bf16 DFT (see MFCCConfig.precision).
     np.testing.assert_allclose(
         np.asarray(parity)[: int(t1)], np.asarray(fast)[: int(t2)],
         rtol=1e-3, atol=1e-3,
     )
+
+
+def test_emission_precision_tiers(models, rng):
+    """Each tier names its arithmetic: HIGHEST is true f32, "high" the 3-pass
+    bf16 algorithm (not Precision.HIGH, which is TF32 on the GPU), "default"
+    the backend's default dot. Below HIGHEST needs the quad layout."""
+    import jax
+    import pytest
+
+    from cs304_tpu.models.decoder import EMISSION_PRECISION
+
+    assert EMISSION_PRECISION == {
+        "highest": jax.lax.Precision.HIGHEST,
+        "high": jax.lax.DotAlgorithmPreset.BF16_BF16_F32_X3,
+        "default": jax.lax.Precision.DEFAULT,
+    }
+    feats = [(rng.normal(size=(t, 5)) * 2).astype(np.float32)
+             for t in (30, 18)]
+    outs = {tier: ContinuousDecoder(dict(models), penalty=-8.0,
+                                    emissions="quad",
+                                    emission_precision=tier
+                                    ).predict_batch(feats)
+            for tier in EMISSION_PRECISION}
+    assert outs["high"] == outs["highest"] == outs["default"]
+    with pytest.raises(ValueError, match="require"):
+        ContinuousDecoder(dict(models), emission_precision="high")
+    with pytest.raises(ValueError, match="unknown emission precision"):
+        ContinuousDecoder(dict(models), emissions="quad",
+                          emission_precision="tf32")

@@ -10,8 +10,9 @@ decode backends reproduce the reference's order.
 Scope note: the dense 'scan' backend's argmax orders candidates by state
 index, so a tie between an entry's self-loop and an exit at a HIGHER state
 index resolves differently there (ops/viterbi.py documents this). The default
-'fast' backend and the Pallas 'scanfree' backend implement the reference
-order exactly — that is what ContinuousDecoder ships with.
+'fast' backend and the 'scanfree' GPU kernel (checked here in the Pallas
+interpreter) implement the reference order exactly — that is what
+ContinuousDecoder ships with.
 """
 import numpy as np
 
@@ -69,7 +70,7 @@ def _run_backends(log_b, log_a, lowers, uppers, penalty):
             jnp.asarray(np.array([log_b.shape[0]], np.int32)))
     lb = jnp.asarray(log_b[None])
     f_s, f_p = viterbi_composite_batch_fast(lb, *args)
-    k_s, k_p = viterbi_composite_batch_scanfree(lb, *args)
+    k_s, k_p = viterbi_composite_batch_scanfree(lb, *args, interpret=True)
     return (np.asarray(f_s)[0], np.asarray(f_p)[0],
             np.asarray(k_s)[0], np.asarray(k_p)[0])
 
